@@ -1,6 +1,6 @@
-// occuseg_tpu native host runtime.
+// occuseg native host runtime.
 //
-// TPU-native replacement for the reference's host-side native stack:
+// Replacement for the reference's host-side native stack:
 //  * segment_supervoxels: Felzenszwalb-Huttenlocher graph segmentation over
 //    a voxel-adjacency graph — the equivalent of the external "Segmentator"
 //    tool whose .regions.json the reference consumes
@@ -21,7 +21,6 @@
 #include <unordered_map>
 #include <vector>
 #ifdef _OPENMP
-#include <parallel/algorithm>
 #endif
 
 namespace {
@@ -233,15 +232,15 @@ void gather_rows(const char* src, char* dst, const int64_t* perm,
 // ---------------------------------------------------------------------------
 // Host-side topology plan builder.
 //
-// The jitted in-device plan (occuseg_tpu/core/topology.py) replaces the
-// reference's Metadata, but XLA int64 sorts/searchsorted make it expensive
-// on TPU and slow to compile. On the host, the same maps are cheap hash-map
+// The jitted in-device plan (occuseg/core/topology.py) replaces the
+// reference's Metadata, but XLA int64 sorts/searchsorted make it slow to
+// compile and run on the device. On the host, the same maps are cheap hash-map
 // work (the role CUDPP plays for the reference on GPU,
 // SCN/CUDA/CUDPPWrapper.hpp). This builder produces, for one level:
 //   * sorted unique Morton keys (matching core/coords.py packing),
 //   * the K^3 submanifold neighbor map,
 // and for a level transition the child/up maps. The Python wrapper
-// (occuseg_tpu/native/plan.py) assembles a full Topology pytree from these,
+// (occuseg/native/plan.py) assembles a full Topology pytree from these,
 // so the jitted train step consumes the plan as plain input arrays.
 
 namespace {
@@ -624,95 +623,6 @@ int32_t plan_downsample(const int64_t* fine_keys, const int32_t* fine_coords,
     }
   }
   return std::min(next + 1, cap_c);
-}
-
-// Chunk rulebook for the fused Pallas conv (ops/pallas/chunk_conv.py):
-// per chunk of M consecutive rows, the deduped referenced-row list
-// in_idx [C, U] (-1 pad) and chunk-local indices lidx [C, K, M]
-// (-1 missing). The GPU analog is the per-chunk input-address dedup of
-// the reference's chunk rulebooks (SubmanifoldRules_cuda.cpp:274+,
-// MAX_INPUT_ADDRESS). tmask [C, K] (int32, may be null) collects the
-// one-hot TILE-SKIP bitmask: bit t set iff offset k references a staged
-// slot in column tile [t*tile, (t+1)*tile) — see chunk_conv.TILE.
-// Returns the max unique count over chunks; if it exceeds U the arrays
-// are invalid and the caller falls back.
-int32_t plan_chunks(const int32_t* nbr, int32_t cap, int32_t K, int32_t M,
-                    int32_t U, int32_t* in_idx, int32_t* lidx,
-                    int32_t* tmask, int32_t tile) {
-  const int32_t C = cap / M;
-  int32_t max_uniq = 0;
-#pragma omp parallel
-  {
-    std::vector<int32_t> refs;
-    refs.reserve(static_cast<size_t>(M) * K);
-    // chunk-local row->position map: a generation-stamped DIRECT-MAP
-    // array indexed by row id (no per-chunk clearing, no hashing). The
-    // chunk's referenced rows live in a narrow Morton span (p90 ~25k rows
-    // at L0 = ~200 KB of slots), so the accesses are L2-resident — the
-    // open-addressing hash this replaces paid a multiply+probe chain per
-    // ref into a cold table.
-    struct Slot { int32_t gen, pos; };
-    // transition tables (child/up) hold row ids of the OTHER level, which
-    // can exceed this table's own cap — grow on demand (resize keeps the
-    // existing generation stamps, so the dedup state stays valid)
-    std::vector<Slot> slots(static_cast<size_t>(cap), Slot{-1, 0});
-    auto slot_at = [&slots](int32_t r) -> Slot& {
-      if (static_cast<size_t>(r) >= slots.size())
-        slots.resize(static_cast<size_t>(r) * 2 + 16, Slot{-1, 0});
-      return slots[r];
-    };
-    int32_t gen = -1;
-    int32_t local_max = 0;
-#pragma omp for schedule(dynamic, 8)
-    for (int32_t c = 0; c < C; ++c) {
-      refs.clear();
-      const int32_t* rows = nbr + static_cast<int64_t>(c) * M * K;
-      int32_t* ld = lidx + static_cast<int64_t>(c) * K * M;
-      // Pass 1 dedups the chunk's refs through the stamped map (the
-      // chunk's nbr block is ~7 KB, L1-resident for the re-read below);
-      // the unique list is then sorted and the map repointed to SORTED
-      // positions, so pass 2 writes lidx ONCE with final numbering —
-      // the former first-seen write + LUT-remap rewrite cost an extra
-      // full lidx store+load per level.
-      ++gen;
-      for (int32_t t = 0; t < M * K; ++t) {
-        const int32_t r = rows[t];
-        if (r < 0) continue;
-        Slot& s = slot_at(r);
-        if (s.gen != gen) {
-          s = Slot{gen, static_cast<int32_t>(refs.size())};
-          refs.push_back(r);
-        }
-      }
-      const int32_t u = static_cast<int32_t>(refs.size());
-      local_max = std::max(local_max, u);
-      if (u > U) continue;  // chunk arrays invalid; caller falls back
-      std::sort(refs.begin(), refs.end());
-      int32_t* ii = in_idx + static_cast<int64_t>(c) * U;
-      for (int32_t j = 0; j < u; ++j) {
-        ii[j] = refs[j];
-        slots[refs[j]].pos = j;
-      }
-      for (int32_t j = u; j < U; ++j) ii[j] = -1;
-      int32_t* tm = tmask ? tmask + static_cast<int64_t>(c) * K : nullptr;
-      for (int32_t k = 0; k < K; ++k) {
-        int32_t bits = 0;
-        for (int32_t m = 0; m < M; ++m) {
-          const int32_t r = rows[m * K + k];
-          int32_t pos = -1;
-          if (r >= 0) {
-            pos = slots[r].pos;
-            if (tm) bits |= int32_t{1} << (pos / tile);
-          }
-          ld[k * M + m] = pos;
-        }
-        if (tm) tm[k] = bits;
-      }
-    }
-#pragma omp critical
-    max_uniq = std::max(max_uniq, local_max);
-  }
-  return max_uniq;
 }
 
 }  // extern "C"

@@ -7,12 +7,12 @@ consumed by `training_script/evaluate_instance.sh`).
         --m 64 --residual_blocks --use_dense_model [--data_dir data/scannet]
 
 Stages:
-  1. IMPORT — load the torch state dict into the flax LearningBWDenseUNet
+  1. IMPORT — load the torch state dict into LearningBWDenseUNet
      (`train/torch_import.py`): verifies every key maps and every shape
      matches. Unmapped/missing keys are a hard failure.
   2. ACTIVATION DIFF — run the torch oracle (`tests/torch_oracle.py`, the
      re-derivation of the reference module tree) WITH THE CHECKPOINT'S OWN
-     WEIGHTS and the flax model side-by-side on a fixed deterministic scene;
+     WEIGHTS and this model side-by-side on a fixed deterministic scene;
      report max abs diff per head. Expected: < 1e-3 in f32 (the golden test
      holds 1e-4 on random weights; trained weights can amplify slightly).
      Skipped (with a warning) if torch cannot load the oracle.
@@ -40,7 +40,7 @@ TOL = 1e-3
 
 def main() -> None:
     logging.basicConfig(level=logging.INFO)
-    from occuseg_tpu.train.config import args_to_config, get_parser
+    from occuseg.train.config import args_to_config, get_parser
     parser = get_parser()
     parser.add_argument("--skip_eval", action="store_true", default=False,
                         help="stop after the activation diff (no val mAP)")
@@ -59,11 +59,11 @@ def main() -> None:
     if not path or not os.path.exists(path):
         raise SystemExit(f"--checkpoint_file {path!r} not found")
 
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.models import LearningBWDenseUNet
-    from occuseg_tpu.native.plan import build_plan_host
-    from occuseg_tpu.train.torch_import import load_baseline_checkpoint
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.models import LearningBWDenseUNet
+    from occuseg.native.plan import build_plan_host
+    from occuseg.train.torch_import import load_baseline_checkpoint
 
     planes = tuple(int(x) for x in config["unet_structure"])
     reps = int(config.get("block_reps", 1))

@@ -14,7 +14,7 @@ re-running the net):
     reference's offline_data schema (xyz, pred_embedding, pred_semantic,
     pred_semantic_probability, pred_offsets, pred_displacements, pred_bw,
     occupancy, regions, true_*, scale);
-  * `--from_dump DIR`: no model, no TPU — load the .npz files and run
+  * `--from_dump DIR`: no model, no accelerator — load the .npz files and run
     clustering/merge/refine/metrics; `--bw_relax_factor`,
     `--merge_threshold` etc. can be swept cheaply. Reproduces the inline
     numbers exactly (both paths share `cluster_and_score`).
@@ -31,16 +31,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.cluster import (
+from occuseg.cluster import (
     aggregate_regions,
     filter_proposals,
     instance_precision_recall,
     meanshift_cluster,
     occupancy_merge,
 )
-from occuseg_tpu.cluster.evaluator import gt_instances
-from occuseg_tpu.cluster.meanshift import labels_to_points
-from occuseg_tpu.train.config import args_to_config, get_parser
+from occuseg.cluster.evaluator import gt_instances
+from occuseg.cluster.meanshift import labels_to_points
+from occuseg.train.config import args_to_config, get_parser
 
 
 def cluster_and_score(scene: dict, args) -> tuple:
@@ -63,7 +63,7 @@ def cluster_and_score(scene: dict, args) -> tuple:
         jnp.asarray(scene["occupancy"].reshape(-1)),
         region, args.region_cap, num_classes=num_classes)
     if args.use_joint_refine:
-        from occuseg_tpu.cluster import joint_refine
+        from occuseg.cluster import joint_refine
 
         # per-region mean class probability from the dumped point probs
         p = jnp.asarray(scene["pred_semantic_probability"], jnp.float32)
@@ -99,8 +99,8 @@ def cluster_and_score(scene: dict, args) -> tuple:
 
 def infer_scenes(config, args):
     """Yield (scene_name, dump-schema dict) for each val scene."""
-    from occuseg_tpu.train.loop import build_model, build_spec, get_dataset
-    from occuseg_tpu.train.state import create_train_state, make_eval_step
+    from occuseg.train.loop import build_model, build_spec, get_dataset
+    from occuseg.train.state import create_train_state, make_eval_step
 
     model = build_model(config)
     spec = build_spec(config)
@@ -112,7 +112,7 @@ def infer_scenes(config, args):
                 if k != "region"}
     state = create_train_state(model, jax.random.PRNGKey(0), sample_j, spec)
     if config.get("load"):
-        from occuseg_tpu.train.checkpoint import (
+        from occuseg.train.checkpoint import (
             latest_checkpoint,
             restore_checkpoint,
         )
@@ -156,7 +156,7 @@ def infer_scenes(config, args):
 
 
 def score_scenes(scenes, args) -> dict:
-    from occuseg_tpu.cluster.evaluator import per_proposal_statistics
+    from occuseg.cluster.evaluator import per_proposal_statistics
 
     all_props, all_gts, per_scene_stats = [], [], []
     gt_pts = None
@@ -192,7 +192,7 @@ def score_scenes(scenes, args) -> dict:
         stats[f"recall_{int(thr*100)}"] = res["recall_per_class"]
         # ... and the benchmark-grade AP (ranked PR curve, one-to-one
         # matching — the ScanNet protocol)
-        from occuseg_tpu.cluster.evaluator import instance_average_precision
+        from occuseg.cluster.evaluator import instance_average_precision
         ap = instance_average_precision(all_props, all_gts,
                                         iou_threshold=thr)
         logging.info("AP@%.2f: %.4f (benchmark protocol)", thr, ap["mAP"])
@@ -216,7 +216,7 @@ def main() -> None:
                              "and exit (no clustering)")
     parser.add_argument("--from_dump", default="",
                         help="cluster + score .npz predictions from this "
-                             "dir (no model / TPU needed)")
+                             "dir (no model / accelerator needed)")
     parser.add_argument("--bw_relax_factor", type=float, default=1.0)
     parser.add_argument("--merge_threshold", type=float, default=0.5)
     parser.add_argument("--occupancy_lo", type=float, default=0.3)

@@ -16,7 +16,7 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from occuseg_tpu.utils.metrics import iou_from_confusion
+from occuseg.utils.metrics import iou_from_confusion
 
 
 def main() -> None:

@@ -16,9 +16,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.train.config import args_to_config, get_parser
-from occuseg_tpu.train.loop import build_model, build_spec, get_dataset
-from occuseg_tpu.train.state import create_train_state, make_eval_step
+from occuseg.train.config import args_to_config, get_parser
+from occuseg.train.loop import build_model, build_spec, get_dataset
+from occuseg.train.state import create_train_state, make_eval_step
 
 # 20-class index -> NYU40 label id (reference test.py SELECTED_LABEL_IDS)
 SELECTED_LABEL_IDS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24,
@@ -43,7 +43,7 @@ def main() -> None:
                 if k != "region"}
     state = create_train_state(model, jax.random.PRNGKey(0), sample_j, spec)
     if config.get("load"):
-        from occuseg_tpu.train.checkpoint import (
+        from occuseg.train.checkpoint import (
             latest_checkpoint,
             restore_checkpoint,
         )

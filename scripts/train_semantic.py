@@ -7,8 +7,8 @@ import sys
 
 sys.path.insert(0, ".")
 
-from occuseg_tpu.train.config import args_to_config, get_parser
-from occuseg_tpu.train.loop import evaluate_semantic, train
+from occuseg.train.config import args_to_config, get_parser
+from occuseg.train.loop import evaluate_semantic, train
 
 
 def main() -> None:

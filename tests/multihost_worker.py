@@ -26,7 +26,7 @@ def main() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
-    from occuseg_tpu.parallel.multihost import (
+    from occuseg.parallel.multihost import (
         global_dp_batch,
         global_dp_plans,
         global_mesh,
@@ -41,15 +41,15 @@ def main() -> None:
     import numpy as np
     import jax.numpy as jnp
 
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.models import LearningBWDenseUNet
-    from occuseg_tpu.parallel.data_parallel import (
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.models import LearningBWDenseUNet
+    from occuseg.parallel.data_parallel import (
         make_dp_train_step,
         replicate_state,
     )
-    from occuseg_tpu.train.loop import _host_plan_any
-    from occuseg_tpu.train.state import create_train_state
+    from occuseg.train.loop import _host_plan_any
+    from occuseg.train.state import create_train_state
 
     spec = PlanSpec(caps=(512, 256, 128, 64))
     scene = SceneConfig(num_points=400, extent=32, num_objects=4)

@@ -37,22 +37,22 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.cluster import (
+from occuseg.cluster import (
     aggregate_regions,
     filter_proposals,
     meanshift_cluster,
     occupancy_merge,
 )
-from occuseg_tpu.cluster.evaluator import (
+from occuseg.cluster.evaluator import (
     gt_instances,
     instance_average_precision,
 )
-from occuseg_tpu.cluster.meanshift import labels_to_points
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.train.state import (
+from occuseg.cluster.meanshift import labels_to_points
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.native.plan import build_plan_host
+from occuseg.train.state import (
     TrainConfig,
     create_train_state,
     make_eval_step,

@@ -13,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.train.state import (
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.native.plan import build_plan_host
+from occuseg.train.state import (
     TrainConfig,
     create_train_state,
     make_train_step,

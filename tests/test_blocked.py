@@ -2,10 +2,8 @@
 
 Verifies the per-scene sub-cap row layout against the concatenated plan:
 same topology per scene, same model outputs per POINT (point order is
-layout-invariant), chunk kernels equal to the XLA path on blocked plans,
-and the train-step losses match the concatenated layout. The layout
-exists for batch>1 gather bandwidth on TPU (PERF.md batch-4 breakdown);
-these tests pin the semantics on CPU.
+layout-invariant), the sorted point layout over a blocked plan, and the
+train-step losses match the concatenated layout.
 """
 
 import dataclasses
@@ -15,14 +13,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native import _load
-from occuseg_tpu.native.blocked import (
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.native import _load
+from occuseg.native.blocked import (
     blocked_scene_caps,
     build_plan_host_blocked,
 )
-from occuseg_tpu.native.plan import build_plan_host
+from occuseg.native.plan import build_plan_host
 
 pytestmark = pytest.mark.skipif(_load() is None,
                                 reason="native library unavailable")
@@ -87,7 +85,7 @@ def test_blocked_plan_invariants():
 
 def test_blocked_plan_validates():
     """validate_plan's invariant checks hold on the blocked layout."""
-    from occuseg_tpu.core.topology import validate_plan
+    from occuseg.core.topology import validate_plan
 
     batch = _batch(12)
     blocked, concat = _plans(batch)
@@ -98,7 +96,7 @@ def test_blocked_plan_validates():
 
 def test_blocked_forward_matches_concat():
     """Per-point eval outputs are layout-invariant (XLA conv path)."""
-    from occuseg_tpu.models import InstanceDenseUNet
+    from occuseg.models import InstanceDenseUNet
 
     batch = _batch(8)
     blocked, concat = _plans(batch)
@@ -115,47 +113,11 @@ def test_blocked_forward_matches_concat():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_blocked_chunks_scene_local():
-    from occuseg_tpu.ops.pallas.chunk_conv import augment_plan_with_chunks
-
-    batch = _batch(9)
-    blocked, _ = _plans(batch)
-    aug = augment_plan_with_chunks(blocked)
-    scaps = blocked_scene_caps(CAPS, NS)
-    for li, lvl in enumerate(aug.levels):
-        assert lvl.chunks is not None, f"level {li} chunk overflow"
-        assert lvl.chunks.ns == NS
-        # in_idx values are scene-LOCAL (within the sub-cap)
-        ii = np.asarray(lvl.chunks.in_idx)
-        assert ii.max() < scaps[li]
-    for tr in aug.transitions:
-        assert tr.child_chunks is not None and tr.up_chunks is not None
-        assert tr.child_chunks.ns == NS
-
-
-def test_blocked_chunk_conv_matches_xla():
-    """Fused chunk kernels on a blocked plan == XLA gather path."""
-    from occuseg_tpu.models import InstanceDenseUNet
-    from occuseg_tpu.ops.pallas.chunk_conv import augment_plan_with_chunks
-
-    batch = _batch(10)
-    blocked, _ = _plans(batch)
-    aug = augment_plan_with_chunks(blocked)
-    feats = jnp.asarray(batch["features"])
-    model = InstanceDenseUNet(n_planes=(8, 16, 24, 32), num_classes=20)
-    variables = model.init(jax.random.PRNGKey(1), feats, blocked, False)
-    out_x = model.apply(variables, feats, blocked, False)
-    out_k = model.apply(variables, feats, aug, False)
-    np.testing.assert_allclose(np.asarray(out_k.semantics),
-                               np.asarray(out_x.semantics),
-                               rtol=2e-4, atol=2e-4)
-
-
 def test_blocked_train_step_matches_concat():
     """Full train step (6-term loss + Adam) gives the same losses on the
     blocked and concatenated layouts (BN reduction order differs -> tol)."""
-    from occuseg_tpu.models import LearningBWDenseUNet
-    from occuseg_tpu.train.state import (
+    from occuseg.models import LearningBWDenseUNet
+    from occuseg.train.state import (
         TrainConfig, create_train_state, make_train_step,
     )
 
@@ -177,71 +139,47 @@ def test_blocked_train_step_matches_concat():
 
 
 def test_blocked_point_gather_matches_global():
-    """Per-scene windowed point IO (`pool._point_gather`, ns>1 + sorted
-    layout) equals the global gather, forward and backward — the blocked
-    devoxelize/voxelize path (r5: XLA row gathers from multi-scene tables
-    run ~10x slower than per-scene window gathers, PERF.md batch-4)."""
-    from occuseg_tpu.core.point_layout import (
-        augment_plan_with_point_layout,
+    """The sorted point layout over a blocked plan: devoxelize equals the
+    global gather, and the layout's voxelize (with its host counts and
+    sorted segment ids) equals the plain segment mean, values and
+    gradients."""
+    from occuseg.core.point_layout import (
+        apply_point_layout, augment_plan_with_point_layout,
     )
-    from occuseg_tpu.ops import pool as pool_ops
-    from occuseg_tpu.ops.gather import gather_rows
+    from occuseg.ops import pool as pool_ops
+    from occuseg.ops.gather import gather_rows
 
     batch = _batch(13)
     blocked, _ = _plans(batch)
     plan = augment_plan_with_point_layout(blocked)
-    assert plan.vox_seg is not None, "layout must fit for this test"
+    batch2 = apply_point_layout(batch, plan)
     p2v = jnp.asarray(plan.p2v)
-    vox_seg = jnp.asarray(plan.vox_seg)
     rng = np.random.default_rng(0)
     vox = jnp.asarray(rng.normal(size=(CAPS[0], 8)).astype(np.float32))
+    np.testing.assert_array_equal(
+        np.asarray(pool_ops.devoxelize_features(vox, p2v)),
+        np.asarray(gather_rows(vox, p2v)))
 
-    out_w = pool_ops._point_gather(vox, p2v, vox_seg, NS)
-    out_g = gather_rows(vox, p2v)
-    np.testing.assert_array_equal(np.asarray(out_w), np.asarray(out_g))
+    x = jnp.asarray(batch["features"])
+    x2 = jnp.asarray(batch2["features"])
 
-    # full devoxelize custom_vjp: forward + backward vs the plain path
-    f_w = lambda v: pool_ops.devoxelize_features(v, p2v, vox_seg, ns=NS).sum()
-    f_g = lambda v: gather_rows(v, p2v).sum()
-    np.testing.assert_allclose(np.asarray(jax.grad(f_w)(vox)),
-                               np.asarray(jax.grad(f_g)(vox)),
-                               rtol=1e-6, atol=1e-6)
+    def vox_ref(f):
+        return pool_ops.voxelize_features(f, jnp.asarray(blocked.p2v),
+                                          CAPS[0], mode="mean")
 
-    # voxelize backward is the windowed gather of the cotangent
-    pts = jnp.asarray(rng.normal(size=(p2v.shape[0], 8)).astype(np.float32))
-    g_w = jax.grad(lambda x: pool_ops.voxelize_features(
-        x, p2v, CAPS[0], mode="sum", vox_seg=vox_seg,
-        vox_counts=jnp.asarray(plan.vox_counts), ns=NS).sum())(pts)
-    g_g = jax.grad(lambda x: pool_ops.voxelize_features(
-        x, p2v, CAPS[0], mode="sum", vox_seg=vox_seg,
-        vox_counts=jnp.asarray(plan.vox_counts)).sum())(pts)
-    np.testing.assert_allclose(np.asarray(g_w), np.asarray(g_g),
-                               rtol=1e-6, atol=1e-6)
+    def vox_lay(f):
+        return pool_ops.voxelize_features(
+            f, p2v, CAPS[0], mode="mean",
+            vox_counts=jnp.asarray(plan.vox_counts),
+            indices_are_sorted=True)
 
-
-def test_scene_split_matches_merged(monkeypatch):
-    """OCC_SCENE_SPLIT=1 (per-scene staging+kernel dispatches) is
-    numerically identical to the merged ns-scene dispatch, values and
-    grads, for submanifold convs AND transitions."""
-    from occuseg_tpu.models import InstanceDenseUNet
-    from occuseg_tpu.ops.pallas.chunk_conv import augment_plan_with_chunks
-
-    batch = _batch(14)
-    blocked, _ = _plans(batch)
-    aug = augment_plan_with_chunks(blocked)
-    feats = jnp.asarray(batch["features"])
-    model = InstanceDenseUNet(n_planes=(8, 16, 24, 32), num_classes=20)
-    variables = model.init(jax.random.PRNGKey(2), feats, aug, False)
-
-    def loss(v, f):
-        out = model.apply(v, f, aug, False)
-        return (jnp.sum(out.semantics ** 2)
-                + jnp.sum(out.embedding ** 2)).astype(jnp.float32)
-
-    monkeypatch.setenv("OCC_SCENE_SPLIT", "0")
-    l0, g0 = jax.value_and_grad(loss)(variables, feats)
-    monkeypatch.setenv("OCC_SCENE_SPLIT", "1")
-    l1, g1 = jax.value_and_grad(loss)(variables, feats)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-6)
-    jax.tree.map(lambda a0, a1: np.testing.assert_allclose(
-        np.asarray(a1), np.asarray(a0), rtol=1e-5, atol=1e-6), g0, g1)
+    np.testing.assert_allclose(np.asarray(vox_lay(x2)),
+                               np.asarray(vox_ref(x)), rtol=1e-5, atol=1e-6)
+    w = jnp.asarray(rng.normal(size=(CAPS[0], 3)).astype(np.float32))
+    g_ref = jax.grad(lambda f: jnp.sum(vox_ref(f) * w))(x)
+    g_lay = jax.grad(lambda f: jnp.sum(vox_lay(f) * w))(x2)
+    perm = np.asarray(plan.point_perm)
+    keep = perm >= 0
+    np.testing.assert_allclose(np.asarray(g_lay)[keep],
+                               np.asarray(g_ref)[perm[keep]],
+                               rtol=1e-6, atol=1e-7)

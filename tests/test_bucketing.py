@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.train.bucketing import (
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.train.bucketing import (
     bucket_specs,
     count_voxels,
     pick_bucket,

@@ -6,9 +6,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.core.sparse_tensor import SparseTensor
-from occuseg_tpu.nn.unet import (
+from occuseg.core import topology as T
+from occuseg.core.sparse_tensor import SparseTensor
+from occuseg.nn.unet import (
     FullyConvolutionalNet,
     SparseResNet,
     SparseVggNet,

@@ -3,20 +3,21 @@
 import os
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec, build_plan
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import ThreeVoxelKernel
-from occuseg_tpu.train import checkpoint as ckpt
-from occuseg_tpu.train.state import create_train_state
-from occuseg_tpu.utils.metrics import confusion_matrix, iou_from_confusion
-from occuseg_tpu.utils.ply import write_labeled_ply
-from occuseg_tpu.utils.profiling import plan_muladd_count
-from occuseg_tpu.ops.conv import conv_flops
-from occuseg_tpu.data.prepare import read_ply
+from occuseg.core.topology import PlanSpec, build_plan
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import ThreeVoxelKernel
+from occuseg.train import checkpoint as ckpt
+from occuseg.train.state import create_train_state
+from occuseg.utils.metrics import confusion_matrix, iou_from_confusion
+from occuseg.utils.ply import write_labeled_ply
+from occuseg.utils.profiling import plan_muladd_count
+from occuseg.ops.conv import conv_flops
+from occuseg.data.prepare import read_ply
 
 
 def test_checkpoint_roundtrip_and_gc(tmp_path):
@@ -42,6 +43,22 @@ def test_checkpoint_roundtrip_and_gc(tmp_path):
     # the max -> kept; 3 is neither -> gone
     assert "step_3" not in kept
     assert "step_64" in kept and "step_65" in kept
+
+
+def test_checkpoint_restore_rejects_other_tree(tmp_path):
+    state = {"a": np.arange(3.0), "b": {"c": np.ones((2, 2), np.float32)}}
+    path = ckpt.save_checkpoint(str(tmp_path), state, step=4)
+    assert path.endswith("step_4")
+    back = ckpt.restore_checkpoint(path, state)
+    np.testing.assert_array_equal(back["b"]["c"], state["b"]["c"])
+    assert back["b"]["c"].dtype == np.float32
+    with pytest.raises(ValueError, match="does not match"):
+        ckpt.restore_checkpoint(path, {"a": np.arange(3.0)})
+
+
+def test_checkpoint_write_leaves_no_temp_file(tmp_path):
+    path = ckpt.save_checkpoint(str(tmp_path), {"x": np.zeros(2)}, step=1)
+    assert os.listdir(path) == ["state.npz"]
 
 
 def test_confusion_matrix_and_iou():

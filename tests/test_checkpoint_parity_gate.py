@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from occuseg_tpu.train.config import args_to_config, get_parser
+from occuseg.train.config import args_to_config, get_parser
 
 
 def test_parity_gate_passes_on_oracle_checkpoint(tmp_path, monkeypatch):
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
     from tests.torch_oracle import OracleLearningBWDenseUNet
 
     if build_plan_host(make_batch(SceneConfig(num_points=100, extent=16,

@@ -6,15 +6,15 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from occuseg_tpu.cluster import (
+from occuseg.cluster import (
     aggregate_regions,
     filter_proposals,
     instance_precision_recall,
     meanshift_cluster,
     occupancy_merge,
 )
-from occuseg_tpu.cluster.evaluator import gt_instances
-from occuseg_tpu.cluster.meanshift import labels_to_points
+from occuseg.cluster.evaluator import gt_instances
+from occuseg.cluster.meanshift import labels_to_points
 
 P = 2000
 NUM_INST = 6
@@ -107,7 +107,7 @@ def test_occupancy_merge_joins_fragments():
 
 
 def test_submission_writer_and_fake_judge(tmp_path):
-    from occuseg_tpu.cluster.submission import write_scene_submission
+    from occuseg.cluster.submission import write_scene_submission
 
     rng = np.random.default_rng(5)
     n = 300
@@ -128,7 +128,7 @@ def test_joint_refine_recovers_and_refines_semantics():
     """joint_semantic_instance_segmentation analog: instances recovered in
     one shot from seeds; noisy per-point semantics corrected by the
     membership-weighted vote (evaluate_instance.py:809-964)."""
-    from occuseg_tpu.cluster import joint_refine, region_semantic_probability
+    from occuseg.cluster import joint_refine, region_semantic_probability
 
     s = _scene(2)
     # logits: mostly the true class, 20% of points corrupted
@@ -166,7 +166,7 @@ def test_joint_refine_recovers_and_refines_semantics():
 def test_instance_average_precision_known_values():
     """Constructed scenes with hand-computable AP (benchmark protocol:
     ranked PR curve, one-to-one matching, duplicates are FPs)."""
-    from occuseg_tpu.cluster.evaluator import instance_average_precision
+    from occuseg.cluster.evaluator import instance_average_precision
 
     def mask(idx, n=100):
         m = np.zeros(n, bool)

@@ -14,9 +14,9 @@ the device labels 0-based, the reference 1-based).
 import numpy as np
 import pytest
 
-from occuseg_tpu.cluster.meanshift import meanshift_cluster
-from occuseg_tpu.cluster.merge import occupancy_merge
-from occuseg_tpu.cluster.supervoxel import RegionFeatures
+from occuseg.cluster.meanshift import meanshift_cluster
+from occuseg.cluster.merge import occupancy_merge
+from occuseg.cluster.supervoxel import RegionFeatures
 
 from cluster_oracle import meanshift_oracle, merge_oracle
 

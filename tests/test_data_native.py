@@ -6,10 +6,10 @@ import tempfile
 import numpy as np
 import pytest
 
-from occuseg_tpu.data.prepare import read_ply, prepare_scene
-from occuseg_tpu.data.scannet import ScanNetData, elastic
-from occuseg_tpu.data.supervoxel_gen import segment_supervoxels
-from occuseg_tpu.native import have_native, voxelize_points_native
+from occuseg.data.prepare import read_ply, prepare_scene
+from occuseg.data.scannet import ScanNetData, elastic
+from occuseg.data.supervoxel_gen import segment_supervoxels
+from occuseg.native import have_native, voxelize_points_native
 
 
 def _write_binary_ply(path, coords, colors):
@@ -146,7 +146,7 @@ def test_scannet_dataset_collate(tmp_path):
 
 
 def test_s3dis_room_prep(tmp_path):
-    from occuseg_tpu.data.s3dis import prepare_room
+    from occuseg.data.s3dis import prepare_room
 
     rng = np.random.default_rng(7)
     ann = tmp_path / "office_1" / "Annotations"

@@ -6,14 +6,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.core.sparse_tensor import SparseTensor
-from occuseg_tpu.losses.semantic import (
+from occuseg.core import topology as T
+from occuseg.core.sparse_tensor import SparseTensor
+from occuseg.losses.semantic import (
     focal_loss,
     lovasz_softmax,
     weighted_cross_entropy,
 )
-from occuseg_tpu.nn import extras
+from occuseg.nn import extras
 
 from tests.utils import random_points
 

@@ -7,15 +7,15 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import coords as C
-from occuseg_tpu.core.topology import (
+from occuseg.core import coords as C
+from occuseg.core.topology import (
     PlanSpec,
     build_plan,
     full_conv_plan,
     grow_keys,
 )
-from occuseg_tpu.core.sparse_tensor import SparseTensor
-from occuseg_tpu.nn.modules import FullConvolution, SubmanifoldConvolution
+from occuseg.core.sparse_tensor import SparseTensor
+from occuseg.nn.modules import FullConvolution, SubmanifoldConvolution
 
 from tests.utils import random_points
 
@@ -101,7 +101,7 @@ def test_full_conv_gradients_flow_and_chainable():
     class Net:
         """FullConvolution then a submanifold conv on the GROWN topology."""
 
-    import flax.linen as nn
+    from occuseg.nn import core as nn
 
     class Chain(nn.Module):
         @nn.compact

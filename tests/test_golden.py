@@ -11,8 +11,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec, build_plan
-from occuseg_tpu.models import LearningBWDenseUNet
+from occuseg.core.topology import PlanSpec, build_plan
+from occuseg.models import LearningBWDenseUNet
 
 from tests.utils import random_points
 

@@ -4,7 +4,7 @@ A torch oracle (`tests/torch_oracle.py`) re-derives the reference
 LearningBWDenseUNet semantics and module tree. Its state_dict keys must be
 exactly what `train/torch_import.learning_bw_name_map` expects (the
 reference checkpoint key contract), and importing those weights into the
-flax model must reproduce the oracle's ACTIVATIONS on a real scene — the
+model must reproduce the oracle's ACTIVATIONS on a real scene — the
 end-to-end proof that a real `baseline_m64.pth` would load correctly:
 key names, [K^3,Cin,Cout] conv layout, [out,in] Linear transpose, NIN
 [in,out] shortcut layout, BN eval semantics, UNet wiring and join order.
@@ -17,12 +17,12 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.train.torch_import import learning_bw_name_map
-from occuseg_tpu.train.checkpoint import import_torch_state_dict
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.native.plan import build_plan_host
+from occuseg.train.torch_import import learning_bw_name_map
+from occuseg.train.checkpoint import import_torch_state_dict
 
 from tests.torch_oracle import OracleLearningBWDenseUNet
 

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import occuseg_tpu.legacy as scn
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.core.sparse_tensor import SparseTensor
+import occuseg.legacy as scn
+from occuseg.core import topology as T
+from occuseg.core.sparse_tensor import SparseTensor
 
 from tests.utils import random_points
 
@@ -66,12 +66,12 @@ def test_append_tensors():
     import jax.numpy as jnp
     import numpy as np
 
-    import occuseg_tpu.legacy as scn
-    from occuseg_tpu.core.sparse_tensor import SparseTensor
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
-    from occuseg_tpu.ops.conv import gather_conv
+    import occuseg.legacy as scn
+    from occuseg.core.sparse_tensor import SparseTensor
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
+    from occuseg.ops.conv import gather_conv
 
     spec = PlanSpec(caps=(512, 256))
     rng = np.random.default_rng(0)

@@ -5,14 +5,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.losses import (
+from occuseg.losses import (
     LossConfig,
     classification_loss,
     discriminative_loss,
     occuseg_total_loss,
     semantic_cross_entropy,
 )
-from occuseg_tpu.models.occuseg import OccuSegOutputs
+from occuseg.models.occuseg import OccuSegOutputs
 
 P, I, S, E = 400, 16, 2, 8
 
@@ -236,7 +236,7 @@ def test_classification_bce_s_space_matches_prob_space():
 def test_onehot_segment_ops_match_scatter():
     """_seg_sum/_seg_max one-hot forms (num <= 128, the MXU path) equal
     jax.ops scatter forms."""
-    from occuseg_tpu.losses.instance import _seg_max, _seg_sum
+    from occuseg.losses.instance import _seg_max, _seg_sum
 
     rng = np.random.default_rng(3)
     P, num = 5000, 65

@@ -4,13 +4,13 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from occuseg.nn import core as nn
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.nn.extras import ActivePooling
-from occuseg_tpu.nn.modules import SubmanifoldConvolution, InputLayer
-from occuseg_tpu.nn.spectral_norm import SpectralDense
-from occuseg_tpu.train.classification import classification_train_validate
+from occuseg.core.topology import PlanSpec
+from occuseg.nn.extras import ActivePooling
+from occuseg.nn.modules import SubmanifoldConvolution, InputLayer
+from occuseg.nn.spectral_norm import SpectralDense
+from occuseg.train.classification import classification_train_validate
 
 from tests.utils import random_points
 

@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.models import LearningBWDenseUNet, ThreeVoxelKernel
+from occuseg.core import topology as T
+from occuseg.models import LearningBWDenseUNet, ThreeVoxelKernel
 
 from tests.utils import random_points
 
@@ -87,8 +87,8 @@ def test_gradients_flow_through_model():
 def test_dense_unet_bn_forward():
     """DenseUNet_BN (model.py:133-257): dense-skip decoder with gated
     cross-scale fusion; output at full resolution, width n_planes[0]."""
-    from occuseg_tpu.core.sparse_tensor import SparseTensor
-    from occuseg_tpu.models.occuseg import DenseUNet_BN
+    from occuseg.core.sparse_tensor import SparseTensor
+    from occuseg.models.occuseg import DenseUNet_BN
 
     plan, feats = _inputs(3)
     lvl0 = plan.levels[0]

@@ -7,12 +7,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec, build_plan, validate_plan
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.native import have_native
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.train.state import create_train_state, make_train_step
+from occuseg.core.topology import PlanSpec, build_plan, validate_plan
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.native import have_native
+from occuseg.native.plan import build_plan_host
+from occuseg.train.state import create_train_state, make_train_step
 
 from tests.utils import random_points
 
@@ -67,9 +67,9 @@ def test_host_plan_general_size_stride_matches_jit():
     previously the host builder asserted size==stride==2)."""
     import jax
     import jax.numpy as jnp
-    from occuseg_tpu.core.topology import PlanSpec, build_plan
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
+    from occuseg.core.topology import PlanSpec, build_plan
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
 
     spec = PlanSpec(caps=(1024, 512, 256), down_size=3, down_stride=2)
     b = make_batch(SceneConfig(num_points=1500, extent=40, num_objects=5),
@@ -92,33 +92,11 @@ def test_host_plan_general_size_stride_matches_jit():
 
 
 def test_host_plan_unsupported_spec_returns_none():
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
 
     b = make_batch(SceneConfig(num_points=500, extent=24, num_objects=3),
                    1, 1024, 8, seed=1)
     assert build_plan_host(
         b["coords"], PlanSpec(caps=(512,), dilation=2, nn_search=True)) is None
-
-
-def test_native_tile_mask_matches_numpy():
-    """plan_chunks' in-loop tmask == the NumPy tile_mask post-pass."""
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native import plan_chunks_native
-    from occuseg_tpu.native.plan import build_plan_host
-    from occuseg_tpu.ops.pallas.chunk_conv import TILE, tile_mask
-
-    b = make_batch(SceneConfig(num_points=1500, extent=48, num_objects=5),
-                   1, 2048, 8, seed=2)
-    plan = build_plan_host(b["coords"], PlanSpec(caps=(512, 256)))
-    assert plan is not None
-    nbr = np.asarray(plan.levels[0].nbr)
-    out = plan_chunks_native(nbr, 64, 192, tile=TILE)
-    assert out is not None and out[0] is not None, "native planner required"
-    in_idx, lidx, tm = out
-    np.testing.assert_array_equal(tm, tile_mask(lidx))
-    # every valid lidx slot is covered by a set bit; no spurious bits
-    nt = -(-192 // TILE)
-    assert tm.max() < (1 << nt)

@@ -5,9 +5,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.ops import conv as conv_ops
-from occuseg_tpu.ops.normal_guide import (
+from occuseg.core import topology as T
+from occuseg.ops import conv as conv_ops
+from occuseg.ops.normal_guide import (
     ORIENT_PERM,
     normal_guided_conv,
     oriented_filter,
@@ -93,9 +93,9 @@ def test_plan_with_normals():
 def test_normal_guided_model_forward():
     """SubmanifoldConvolution(normal_guided=True) through a plan built with
     point normals."""
-    import flax.linen as nn
-    from occuseg_tpu.core.sparse_tensor import SparseTensor
-    from occuseg_tpu.nn.modules import SubmanifoldConvolution
+    from occuseg.nn import core as nn
+    from occuseg.core.sparse_tensor import SparseTensor
+    from occuseg.nn.modules import SubmanifoldConvolution
 
     rng = np.random.default_rng(9)
     pts = random_points(rng, 300, extent=16, batch_size=2, pad_to=512)
@@ -122,9 +122,9 @@ def test_host_plan_orientation_matches_jit_plan():
     hardcoded orient=zeros)."""
     import jax
     import jax.numpy as jnp
-    from occuseg_tpu.core.topology import PlanSpec, build_plan
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
+    from occuseg.core.topology import PlanSpec, build_plan
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
 
     spec = PlanSpec(caps=(2048, 1024, 512))
     b = make_batch(SceneConfig(num_points=3000, extent=64, num_objects=6),
@@ -150,11 +150,11 @@ def test_use_normal_train_step_end_to_end():
     using a host plan that carries orientation classes."""
     import jax
     import jax.numpy as jnp
-    from occuseg_tpu.core.topology import PlanSpec
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.models import LearningBWDenseUNet
-    from occuseg_tpu.native.plan import build_plan_host
-    from occuseg_tpu.train.state import create_train_state, make_train_step
+    from occuseg.core.topology import PlanSpec
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.models import LearningBWDenseUNet
+    from occuseg.native.plan import build_plan_host
+    from occuseg.train.state import create_train_state, make_train_step
 
     spec = PlanSpec(caps=(2048, 1024, 512))
     b = make_batch(SceneConfig(num_points=1500, extent=48, num_objects=6),
@@ -187,8 +187,8 @@ def test_guide_levels_cutoff():
     cutoff (`ConvolutionRules.h:774`, `model.py:662-663`): orientation
     classes exist only at levels 0..rotation_guide_level; coarser levels
     stay identity. Host and jit builders agree on the cutoff."""
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native.plan import build_plan_host
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native.plan import build_plan_host
 
     spec = T.PlanSpec(caps=(2048, 1024, 512), guide_levels=2)
     b = make_batch(SceneConfig(num_points=3000, extent=64, num_objects=6),

@@ -7,10 +7,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.ops import conv as conv_ops
-from occuseg_tpu.ops import norm as norm_ops
-from occuseg_tpu.ops import pool as pool_ops
+from occuseg.core import topology as T
+from occuseg.ops import conv as conv_ops
+from occuseg.ops import norm as norm_ops
+from occuseg.ops import pool as pool_ops
 
 from tests.utils import (
     dense_from_sparse,

@@ -7,10 +7,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.core.sparse_tensor import SparseTensor
-from occuseg_tpu.nn.extras import PermutohedralSubmanifoldConvolution
-from occuseg_tpu.ops.permutohedral import (
+from occuseg.core import topology as T
+from occuseg.core.sparse_tensor import SparseTensor
+from occuseg.nn.extras import PermutohedralSubmanifoldConvolution
+from occuseg.ops.permutohedral import (
     embed_points,
     permutohedral_basis,
     permutohedral_offsets,

@@ -4,10 +4,10 @@ the in-process builder, window bounded, bucket assignment preserved."""
 import numpy as np
 import pytest
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.native.pool import PlanPool
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.native.plan import build_plan_host
+from occuseg.native.pool import PlanPool
 
 SPEC = PlanSpec(caps=(1024, 512))
 SCENE = SceneConfig(num_points=1500, extent=48, num_objects=5)
@@ -32,17 +32,6 @@ def test_pool_matches_inprocess_and_order():
                                       np.asarray(r.levels[0].keys))
         np.testing.assert_array_equal(np.asarray(plan.levels[0].nbr),
                                       np.asarray(r.levels[0].nbr))
-
-
-def test_pool_chunks_attached():
-    batches = _batches(2)
-    if build_plan_host(batches[0]["coords"], SPEC) is None:
-        pytest.skip("native planner unavailable")
-    with PlanPool(SPEC, workers=2, chunks=True) as pool:
-        for b, plan, bi in pool.imap(iter(batches)):
-            assert plan is not None
-            # cap 1024 % 128 == 0 -> chunkable level
-            assert plan.levels[0].chunks is not None
 
 
 def test_pool_reuse_across_epochs():

@@ -1,8 +1,9 @@
-"""Sorted point layout + blocked segment-sum kernel (ops/pallas/segsum.py).
+"""Sorted point layout (core/point_layout.py).
 
 The layout must be a pure permutation of the batch (training semantics are
-order-invariant), and the scatter-free voxelize/devoxelize must equal the
-XLA segment ops bit-for-bit in f32.
+order-invariant) that leaves p2v non-decreasing with the padding last, and
+voxelize/devoxelize over it — with or without telling the segment sum that
+its ids are sorted — must equal the plain segment ops in f32.
 """
 
 import numpy as np
@@ -10,14 +11,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from occuseg_tpu.core.point_layout import (
+from occuseg.core.point_layout import (
     apply_point_layout, augment_plan_with_point_layout, build_point_layout,
 )
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.ops import pool as pool_ops
-from occuseg_tpu.ops.pallas.segsum import sorted_segment_sum
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.native.plan import build_plan_host
+from occuseg.ops import pool as pool_ops
 
 CAPS = (12_288, 8_192, 4_096, 2_048, 1_024, 512)
 P_CAP = 24_576
@@ -37,33 +37,30 @@ def setup():
 def test_layout_invariants(setup):
     batch, plan = setup
     p2v = np.asarray(plan.p2v)
-    lay = build_point_layout(p2v, CAPS[0], w=64, r=112)
-    assert lay is not None
-    perm, vox_seg = lay["perm"], lay["vox_seg"]
-    B, _, R = vox_seg.shape
-    # a permutation: every valid point appears exactly once
+    lay = build_point_layout(p2v, CAPS[0])
+    perm = lay["perm"]
+    # a permutation: every valid point appears exactly once, pads last
     valid = np.nonzero(p2v >= 0)[0]
-    assert sorted(perm[perm >= 0]) == sorted(valid)
-    # slot seg ids match the permuted p2v, relative to the block base
-    flat = vox_seg.reshape(-1)
-    main_p2v = lay["p2v"][:B * R]
-    blk = np.repeat(np.arange(B), R) * 64
-    ok = flat >= 0
-    assert np.array_equal(main_p2v[ok], flat[ok] + blk[ok])
-    assert np.all(main_p2v[~ok] == -1)
+    n = valid.size
+    assert sorted(perm[:n]) == sorted(valid) and np.all(perm[n:] == -1)
+    # the permuted p2v is the old one read through perm, sorted, -1 last
+    new = lay["p2v"]
+    assert np.array_equal(new[:n], p2v[perm[:n]])
+    assert np.all(np.diff(new[:n]) >= 0) and np.all(new[n:] == -1)
     # counts match a bincount of the original p2v
     ref = np.bincount(p2v[valid], minlength=CAPS[0])[:CAPS[0]]
     assert np.array_equal(lay["counts"], ref.astype(np.float32))
 
 
-def test_kernel_equals_segment_sum(setup):
+@pytest.mark.parametrize("sorted_ids", [False, True])
+def test_kernel_equals_segment_sum(setup, sorted_ids):
     batch, plan = setup
-    lay = build_point_layout(np.asarray(plan.p2v), CAPS[0], w=64, r=112)
+    lay = build_point_layout(np.asarray(plan.p2v), CAPS[0])
     rng = np.random.default_rng(0)
     x = rng.standard_normal((P_CAP, 64)).astype(np.float32)
-    got = np.asarray(sorted_segment_sum(
-        jnp.asarray(x), jnp.asarray(lay["p2v"]), jnp.asarray(lay["vox_seg"]),
-        CAPS[0]))
+    got = np.asarray(pool_ops.voxelize_features(
+        jnp.asarray(x), jnp.asarray(lay["p2v"]), CAPS[0], mode="sum",
+        indices_are_sorted=sorted_ids))
     p2v = lay["p2v"]
     seg = np.where(p2v >= 0, p2v, CAPS[0])
     ref = np.zeros((CAPS[0] + 1, 64), np.float32)
@@ -71,24 +68,24 @@ def test_kernel_equals_segment_sum(setup):
     np.testing.assert_allclose(got, ref[:CAPS[0]], rtol=1e-5, atol=1e-5)
 
 
-def test_module_paths_agree(setup):
-    """voxelize/devoxelize (values AND gradients) agree between the XLA
-    scatter path and the sorted-layout kernel path."""
+@pytest.mark.parametrize("sorted_ids", [False, True])
+def test_module_paths_agree(setup, sorted_ids):
+    """voxelize/devoxelize (values AND gradients) agree between the
+    original point order and the sorted layout."""
     batch, plan = setup
-    plan2 = augment_plan_with_point_layout(plan, w=64, r=112)
-    assert plan2.vox_seg is not None
+    plan2 = augment_plan_with_point_layout(plan)
+    assert plan2.vox_counts is not None
     batch2 = apply_point_layout(batch, plan2)
 
     feats = jnp.asarray(batch["features"])
     feats2 = jnp.asarray(batch2["features"])
 
-    def vox(f, p2v, vs, vc):
-        return pool_ops.voxelize_features(f, p2v, CAPS[0], mode="mean",
-                                          vox_seg=vs, vox_counts=vc)
-
-    v_ref = vox(feats, jnp.asarray(plan.p2v), None, None)
-    v_new = vox(feats2, jnp.asarray(plan2.p2v),
-                jnp.asarray(plan2.vox_seg), jnp.asarray(plan2.vox_counts))
+    v_ref = pool_ops.voxelize_features(feats, jnp.asarray(plan.p2v),
+                                       CAPS[0], mode="mean")
+    v_new = pool_ops.voxelize_features(
+        feats2, jnp.asarray(plan2.p2v), CAPS[0], mode="mean",
+        vox_counts=jnp.asarray(plan2.vox_counts),
+        indices_are_sorted=sorted_ids)
     np.testing.assert_allclose(np.asarray(v_new), np.asarray(v_ref),
                                rtol=1e-5, atol=1e-5)
 
@@ -97,8 +94,7 @@ def test_module_paths_agree(setup):
         np.random.default_rng(1).standard_normal((CAPS[0], 32)), jnp.float32)
 
     def loss_new(v):
-        pts = pool_ops.devoxelize_features(
-            v, jnp.asarray(plan2.p2v), vox_seg=jnp.asarray(plan2.vox_seg))
+        pts = pool_ops.devoxelize_features(v, jnp.asarray(plan2.p2v))
         w = jnp.asarray(batch2["features"][:, :1])
         return jnp.sum(pts * pts * w)
 
@@ -118,10 +114,10 @@ def test_losses_order_invariant(setup):
     pure relabeling of point rows; every term is a segment reduction)."""
     import types
 
-    from occuseg_tpu.losses.instance import occuseg_total_loss
+    from occuseg.losses.instance import occuseg_total_loss
 
     batch, plan = setup
-    plan2 = augment_plan_with_point_layout(plan, w=64, r=112)
+    plan2 = augment_plan_with_point_layout(plan)
     batch2 = apply_point_layout(batch, plan2)
     perm = np.asarray(plan2.point_perm)
     rng = np.random.default_rng(7)
@@ -155,8 +151,12 @@ def test_losses_order_invariant(setup):
 
 
 def test_no_fit_fallback():
-    # all 16 points in one voxel, zero tail slack -> overflow can't fit
-    p2v = np.zeros(16, np.int32)
-    assert build_point_layout(p2v, 16, w=8, r=8) is None
-    # w not dividing cap0
-    assert build_point_layout(p2v, 12, w=8, r=8) is None
+    """Dropped points (-1) go after every kept point, in their old order,
+    and an all-dropped batch is all padding."""
+    p2v = np.asarray([3, -1, 0, 3, -1, 1], np.int32)
+    lay = build_point_layout(p2v, 4)
+    assert lay["perm"].tolist() == [2, 5, 0, 3, -1, -1]
+    assert lay["p2v"].tolist() == [0, 1, 3, 3, -1, -1]
+    assert lay["counts"].tolist() == [1, 1, 0, 2]
+    empty = build_point_layout(np.full(5, -1, np.int32), 4)
+    assert np.all(empty["perm"] == -1) and np.all(empty["p2v"] == -1)

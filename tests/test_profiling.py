@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.utils.profiling import CounterState, scope
+from occuseg.utils.profiling import CounterState, scope
 
 
 def test_scope_under_jit():

@@ -4,13 +4,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.core.randomized import (
+from occuseg.core import topology as T
+from occuseg.core.randomized import (
     build_randomized_transition,
     randomized_ticks,
 )
-from occuseg_tpu.ops import conv as conv_ops
-from occuseg_tpu.ops import pool as pool_ops
+from occuseg.ops import conv as conv_ops
+from occuseg.ops import pool as pool_ops
 
 from tests.utils import random_points
 
@@ -70,14 +70,14 @@ def test_randomized_plan_trains_a_network():
     (VERDICT r1 missing #4): a small net consumes a fully randomized plan;
     different rng draws give different topologies (jittered windows) and
     finite gradients flow."""
-    import flax.linen as fnn
+    from occuseg.nn import core as fnn
     import jax
     import jax.numpy as jnp
 
-    from occuseg_tpu.core.randomized import build_randomized_plan
-    from occuseg_tpu.core.sparse_tensor import SparseTensor
-    from occuseg_tpu.core.topology import PlanSpec, build_plan
-    from occuseg_tpu.nn.modules import (
+    from occuseg.core.randomized import build_randomized_plan
+    from occuseg.core.sparse_tensor import SparseTensor
+    from occuseg.core.topology import PlanSpec, build_plan
+    from occuseg.nn.modules import (
         RandomizedStrideConvolution,
         RandomizedStrideMaxPooling,
         SubmanifoldConvolution,

@@ -1,56 +1,63 @@
-"""Chunk-U tables must hold across scenes, not just the bench seed.
+"""The bench geometry must hold across scenes, not just the bench seed.
 
-VERDICT r3 weak #1: the per-level U budgets were tuned against seed-0
-chunk-halo maxima and other seeds overflowed into the (~2.5x slower, and
-at multi-scene table sizes ~29x slower) XLA fallback. The tier escalation
-in `augment_plan_with_chunks` (tiers 1.0/1.3/1.7, each a cached static
-shape) must absorb scene variation: this test builds FULL-SIZE bench
-scenes for several seeds and asserts every level and transition keeps its
-fast-path chunk plan. The reference's analog is robust by construction
-(chunks re-split under MAX_INPUT_ADDRESS,
-`SCN/Metadata/SubmanifoldConvolutionRules.h:277-357`); here robustness is
-budget+tier, so it needs a regression gate.
+Builds FULL-SIZE bench scenes (bench.py's caps) for several seeds with the
+C++ host planner and checks that no level truncates its voxels and that
+the conv implementation the platform dispatches to matches the plain
+reference on the coarse levels of each seed's real maps. Robustness at toy
+sizes proves nothing, so the scenes are real size; the conv checks run on
+the coarse levels, where the CPU reference is cheap.
 """
 
-import numpy as np
+import jax.numpy as jnp
 import pytest
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.ops.pallas import chunk_conv
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.native.plan import build_plan_host
+from occuseg.ops import dispatch
+from occuseg.utils.conv_check import conv_errors
 
-# bench.py's geometry (full-size: robustness at toy sizes proves nothing)
+# bench.py's geometry
 CAPS = (196_608, 139_264, 63_488, 17_408, 4_096, 1_024)
+WIDTHS = (64, 128, 192, 256, 320, 384)
 SCENE = SceneConfig(num_points=200_000, extent=512, num_objects=24)
+
+
+def _plan(seed, num_scenes=1):
+    batch = make_batch(SCENE, num_scenes=num_scenes,
+                       p_cap=262_144 * num_scenes, num_instances=64,
+                       seed=seed)
+    caps = tuple(c * num_scenes for c in CAPS)
+    plan = build_plan_host(batch["coords"], PlanSpec(caps=caps))
+    assert plan is not None, "native planner unavailable"
+    return plan
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_all_levels_chunked_across_seeds(seed):
-    batch = make_batch(SCENE, num_scenes=1, p_cap=262_144,
-                       num_instances=64, seed=seed)
-    plan = build_plan_host(batch["coords"], PlanSpec(caps=CAPS))
-    if plan is None:
-        pytest.skip("native planner unavailable")
-    aug = chunk_conv.augment_plan_with_chunks(plan)
-    for li, lvl in enumerate(aug.levels):
-        assert lvl.chunks is not None, (
-            f"seed {seed}: level {li} fell off the chunk fast path")
-    for ti, tr in enumerate(aug.transitions):
-        assert tr.child_chunks is not None and tr.up_chunks is not None, (
-            f"seed {seed}: transition {ti} fell off the chunk fast path")
+    """Every level of the seed's scene fits its cap, and the dispatched
+    conv agrees with the reference on the level-4/5 maps and the
+    4->5 transition (f32)."""
+    import jax
+
+    plan = _plan(seed)
+    assert not bool(plan.overflow()), f"seed {seed}: a level truncated"
+    conv = dispatch.impl().conv
+    key = jax.random.PRNGKey(seed)
+    lv, tr = plan.levels, plan.transitions
+    cases = [(lv[4].nbr, None, lv[4].cap, 8, 8),
+             (lv[5].nbr, None, lv[5].cap, 8, 8),
+             (tr[4].child, tr[4].up[:, ::-1], lv[4].cap, 8, 16)]
+    for nbr, nbr_t, n, cin, cout in cases:
+        feats = jax.random.normal(key, (n, cin), jnp.float32)
+        w = jax.random.normal(key, (nbr.shape[1], cin, cout), jnp.float32)
+        err = conv_errors(conv, feats, jnp.asarray(nbr),
+                          None if nbr_t is None else jnp.asarray(nbr_t),
+                          w, jnp.float32)
+        assert max(err.values()) < 1e-5, (seed, err)
 
 
 def test_multi_scene_batch_chunked():
-    """Batch-4 (one step) with u_bump=32 — scene-boundary chunks mix two
-    scenes' refs; the bumped tables must still cover every level."""
-    batch = make_batch(SCENE, num_scenes=4, p_cap=262_144 * 4,
-                       num_instances=64, seed=1)
-    caps = tuple(c * 4 for c in CAPS)
-    plan = build_plan_host(batch["coords"], PlanSpec(caps=caps))
-    if plan is None:
-        pytest.skip("native planner unavailable")
-    aug = chunk_conv.augment_plan_with_chunks(plan, u_bump=32)
-    missing = [li for li, lvl in enumerate(aug.levels)
-               if lvl.chunks is None]
-    assert not missing, f"multi-scene batch lost levels {missing}"
+    """A 4-scene batch at 4x the caps fits every level."""
+    plan = _plan(1, num_scenes=4)
+    assert not bool(plan.overflow()), "multi-scene batch truncated"

@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from occuseg_tpu.core import topology as T
-from occuseg_tpu.ops.conv import gather_conv
-from occuseg_tpu.parallel.spatial import (
+from occuseg.core import topology as T
+from occuseg.ops.conv import gather_conv
+from occuseg.parallel.spatial import (
     SPACE_AXIS,
     halo_exchange,
     shard_level,
 )
-from occuseg_tpu.ops.conv import gather_conv_fused
+from occuseg.ops.conv import gather_conv_fused
 
 from tests.utils import random_points
 

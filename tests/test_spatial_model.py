@@ -7,13 +7,13 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.native import have_native
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.parallel.spatial import SPACE_AXIS
-from occuseg_tpu.parallel.spatial_model import sharded_occuseg_infer
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.native import have_native
+from occuseg.native.plan import build_plan_host
+from occuseg.parallel.spatial import SPACE_AXIS
+from occuseg.parallel.spatial_model import sharded_occuseg_infer
 
 pytestmark = pytest.mark.skipif(not have_native(),
                                 reason="needs the C++ host plan builder")
@@ -72,7 +72,7 @@ def test_sharded_infer_matches_unsharded():
 def test_sharded_train_forward_matches_unsharded():
     """Train-mode sharded forward: outputs, updated BN running stats, AND
     parameter gradients all match the unsharded model.apply(train=True)."""
-    from occuseg_tpu.parallel.spatial_model import (
+    from occuseg.parallel.spatial_model import (
         prepare_shard_args,
         sharded_train_forward,
     )
@@ -141,11 +141,11 @@ def test_spatial_train_step_matches_unsharded_step():
     """End-to-end: the sharded training step (OccuSeg 6-term loss + Adam)
     produces the same loss parts and parameter updates as the unsharded
     make_train_step on the same batch/plan."""
-    from occuseg_tpu.parallel.spatial_model import (
+    from occuseg.parallel.spatial_model import (
         make_spatial_train_step,
         prepare_shard_args,
     )
-    from occuseg_tpu.train.state import (
+    from occuseg.train.state import (
         TrainConfig,
         create_train_state,
         make_train_step,

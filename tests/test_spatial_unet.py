@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.native.plan import build_plan_host
-from occuseg_tpu.native import have_native
-from occuseg_tpu.ops.conv import gather_conv, gather_conv_fused
-from occuseg_tpu.parallel.spatial import SPACE_AXIS, extend_features, shard_plan
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.native.plan import build_plan_host
+from occuseg.native import have_native
+from occuseg.ops.conv import gather_conv, gather_conv_fused
+from occuseg.parallel.spatial import SPACE_AXIS, extend_features, shard_plan
 
 pytestmark = pytest.mark.skipif(not have_native(),
                                 reason="needs the C++ host plan builder")
@@ -152,7 +152,7 @@ def test_shard_plan_reconstruction_invariant():
     import numpy as np
     for li, (lvl, sh) in enumerate(zip(plan.levels, sp.levels)):
         lay = sp.layouts[li]
-        from occuseg_tpu.parallel.spatial import _relay_map
+        from occuseg.parallel.spatial import _relay_map
         relaid = _relay_map(np.asarray(lvl.nbr), lay, lay)
         n = check(relaid, sh.nbr_local, sh.send_left, sh.send_right,
                   sh.publish, lay, lay, np.asarray(lvl.nbr).shape[0])

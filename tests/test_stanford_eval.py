@@ -9,8 +9,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from occuseg_tpu.train.config import args_to_config, get_parser
-from occuseg_tpu.utils.metrics import (
+from occuseg.train.config import args_to_config, get_parser
+from occuseg.utils.metrics import (
     STANFORD_CLASS_LABELS,
     confusion_matrix,
     iou_from_confusion,
@@ -40,7 +40,7 @@ def test_confusion_matrix_respects_class_num():
 def test_stanford_eval_loop_14_classes(tmp_path):
     """evaluate_semantic on a 14-class model: 14x14 confusion, finite IoU
     (synthetic labels beyond 13 count as ignored)."""
-    from occuseg_tpu.train.loop import (
+    from occuseg.train.loop import (
         build_model,
         build_spec,
         evaluate_semantic,

@@ -5,8 +5,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from occuseg_tpu.core import coords as C
-from occuseg_tpu.core import topology as T
+from occuseg.core import coords as C
+from occuseg.core import topology as T
 
 from tests.utils import random_points
 
@@ -166,8 +166,8 @@ def test_nn_search_dilated_neighbors():
     intent; its shell loop never perturbs the probe point — see
     build_level docstring)."""
     import numpy as np
-    from occuseg_tpu.core import topology as T
-    from occuseg_tpu.core import coords as C
+    from occuseg.core import topology as T
+    from occuseg.core import coords as C
     from tests.utils import random_points
 
     rng = np.random.default_rng(7)

@@ -9,13 +9,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec, build_plan
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.train.checkpoint import (
+from occuseg.core.topology import PlanSpec, build_plan
+from occuseg.models import LearningBWDenseUNet
+from occuseg.train.checkpoint import (
     _flatten,
     import_torch_state_dict,
 )
-from occuseg_tpu.train.torch_import import learning_bw_name_map
+from occuseg.train.torch_import import learning_bw_name_map
 
 from tests.utils import random_points
 

@@ -5,16 +5,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from occuseg_tpu.core.topology import PlanSpec
-from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-from occuseg_tpu.models import LearningBWDenseUNet
-from occuseg_tpu.parallel.data_parallel import (
+from occuseg.core.topology import PlanSpec
+from occuseg.data.synthetic import SceneConfig, make_batch
+from occuseg.models import LearningBWDenseUNet
+from occuseg.parallel.data_parallel import (
     make_dp_train_step,
     make_mesh,
     replicate_state,
     shard_batch,
 )
-from occuseg_tpu.train.state import (
+from occuseg.train.state import (
     TrainConfig,
     create_train_state,
     make_eval_step,
@@ -57,8 +57,8 @@ def test_eval_step_runs():
 
 
 def _stacked_plans(per_dev_batches, mesh):
-    from occuseg_tpu.parallel.data_parallel import shard_plans, stack_plans
-    from occuseg_tpu.train.loop import _host_plan_any
+    from occuseg.parallel.data_parallel import shard_plans, stack_plans
+    from occuseg.train.loop import _host_plan_any
 
     plans = [_host_plan_any(b["coords"], SPEC) for b in per_dev_batches]
     return shard_plans(stack_plans(plans), mesh)
@@ -118,8 +118,8 @@ def test_dp_matches_mean_of_single_device_grads():
 def test_dp_weighted_remainder_matches_unpadded_group():
     """A group padded with w=0 copies must produce the same update as the
     unpadded group on fewer devices (no scene double-counted)."""
-    from occuseg_tpu.parallel.data_parallel import shard_plans, stack_plans
-    from occuseg_tpu.train.loop import _host_plan_any
+    from occuseg.parallel.data_parallel import shard_plans, stack_plans
+    from occuseg.train.loop import _host_plan_any
 
     n_dev = len(jax.devices())
     real = [make_batch(SCENE, 1, P_CAP, I_CAP, seed=50 + d)
@@ -180,9 +180,9 @@ def test_overfits_single_scene():
 
 def test_gradient_accumulation_matches_mean_gradient():
     """accum_steps=2 over two batches == one step on the averaged gradient
-    (the TPU-native replacement for multi-scene batches; see CLAUDE.md)."""
+    (the sequential replacement for multi-scene batches)."""
     import optax
-    from occuseg_tpu.train.state import TrainConfig
+    from occuseg.train.state import TrainConfig
 
     b1 = _np_batch(20)
     b2 = _np_batch(21)

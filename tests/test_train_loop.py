@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from occuseg_tpu.train.config import args_to_config, get_parser
-from occuseg_tpu.train.loop import evaluate_semantic, train
+from occuseg.train.config import args_to_config, get_parser
+from occuseg.train.loop import evaluate_semantic, train
 
 
 def test_train_loop_synthetic(tmp_path):
@@ -107,10 +107,10 @@ def test_bucket_selection_under_spatial_prefetch():
     from the bucketed plan — small batches get the small bucket and a
     proportionally smaller per-shard voxel capacity."""
     import pytest
-    from occuseg_tpu.data.synthetic import SceneConfig, make_batch
-    from occuseg_tpu.native import have_native
-    from occuseg_tpu.train.bucketing import bucket_specs
-    from occuseg_tpu.train.loop import plan_prefetcher
+    from occuseg.data.synthetic import SceneConfig, make_batch
+    from occuseg.native import have_native
+    from occuseg.train.bucketing import bucket_specs
+    from occuseg.train.loop import plan_prefetcher
     if not have_native():
         pytest.skip("needs the C++ host plan builder")
 

@@ -2,7 +2,7 @@
 
 The reference has no test suite (SURVEY.md §4); its de-facto oracle is the
 CPU backend (`SCN/CPU/*.cpp` index_select + mm + index_add). These NumPy
-oracles play the same role for the TPU build.
+oracles play the same role for this build.
 """
 
 from __future__ import annotations
