@@ -18,10 +18,11 @@ Phases on one card:
     --scale 50 --residual_blocks --use_dense_model`) on the synthetic
     fallback data for one epoch, ending with its `val mean IoU` line.
 
-With ``--cards 4``: the data-parallel train step on a 4-card mesh against
-the update from the mean of the four single-card gradients, and the
-spatially sharded flagship step (4 shards) against the unsharded step —
-the flagship at full widths, depth cut to 3 levels, on ~10k-voxel scenes.
+With ``--cards 4``, only the multi-card phases, both on the flagship at
+full widths and depth over bench scenes (seeds 0-3): the spatially sharded
+train step (scene 0 split over the 4 cards) against the unsharded step on
+one card, and the data-parallel step on a 4-card mesh (one scene per card)
+against the update from the mean of the four single-card gradients.
 
 It exits non-zero without a GPU, without the C++ planner library, or when
 any phase fails. The last line of stdout is a JSON object
@@ -48,11 +49,6 @@ SPATIAL_RTOL = 2e-3       # spatially sharded vs unsharded loss (f32)
 
 N_PLANES = (64, 128, 192, 256, 320, 384)
 I_CAP = 64
-# multi-card phases: a ~10k-voxel synthetic room (fits these caps for
-# seeds 0-3)
-MULTI_SCENE = dict(num_points=12_000, extent=128, num_objects=8)
-MULTI_P_CAP = 16_384
-MULTI_CAPS = (16_384, 12_288, 6_144)
 
 
 def log(msg: str) -> None:
@@ -189,30 +185,44 @@ def phase_trainer() -> None:
         raise SystemExit("error: the trainer ran no epoch")
 
 
-def _per_card(devs, key):
-    """`memory_stats()[key]` of each device: the check that a sharded step
-    placed work on every card. (The CPU backend keeps no stats; there each
-    entry reads 1 so a rehearsal on virtual devices passes this check.)"""
-    return [(d.memory_stats() or {key: 1}).get(key) for d in devs]
+def _peaks(devs):
+    """Each card's `peak_bytes_in_use`; None where the backend keeps no
+    memory stats (the CPU of a rehearsal on virtual devices)."""
+    return [(d.memory_stats() or {}).get("peak_bytes_in_use") for d in devs]
 
 
-def phase_multicard(n: int) -> None:
-    """Data-parallel and spatially sharded steps on `n` cards, each against
-    its single-card comparison. Full widths (64, 128, 192) at depth 3 on
-    ~10k-voxel scenes: the paths and collectives are those of the full
-    model, at a fraction of its compile time."""
+def _grew(before, after) -> bool:
+    """Whether the peak of every card but the first rose across a step: the
+    step placed work on those cards. (The first card ran the model's init
+    and the single-card comparisons, so its peak may already be higher.)"""
+    return all(a is None or b is None or a > b
+               for b, a in zip(before[1:], after[1:]))
+
+
+def compile_concurrently(jobs):
+    """Lower each `(jitted, args)` in turn, then compile them all at once on
+    threads (XLA releases the GIL while it compiles), so the multi-card
+    phase pays about one flagship compile of wall time, not three."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    lowered = [f.lower(*a) for f, a in jobs]
+    with ThreadPoolExecutor(len(lowered)) as ex:
+        return list(ex.map(lambda lw: lw.compile(), lowered))
+
+
+def phase_multicard(n: int, scenes, planes, spec, num_instances: int = I_CAP,
+                    halo: int = 4096, pool: int = 4096) -> None:
+    """Data-parallel and spatially sharded train steps on `n` cards, each
+    against its single-card comparison. `scenes` holds `n` (batch, plan)
+    pairs built for the caps of `spec`: the DP step takes one per card, the
+    spatial step splits the first over all `n` cards (`halo`/`pool` rows
+    per shard for the halo exchange, as `--spatial_halo/--spatial_pool`)."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
 
-    from occuseg.core.point_layout import (
-        apply_point_layout, augment_plan_with_point_layout,
-    )
-    from occuseg.core.topology import PlanSpec
-    from occuseg.data.synthetic import SceneConfig, make_batch
     from occuseg.models import LearningBWDenseUNet
-    from occuseg.native.plan import build_plan_host
     from occuseg.parallel.data_parallel import (
         make_dp_train_step, make_mesh, replicate_state, shard_batch,
         shard_plans, stack_plans,
@@ -227,78 +237,84 @@ def phase_multicard(n: int) -> None:
     from occuseg.utils.conv_check import rel_err
 
     devs = jax.devices()
-    if len(devs) < n:
-        raise SystemExit(f"error: {n} cards asked for, {len(devs)} found")
+    if len(devs) < n or len(scenes) != n:
+        raise SystemExit(f"error: {n} cards and scenes asked for, "
+                         f"{len(devs)} cards and {len(scenes)} scenes found")
     devs = devs[:n]
-    planes = N_PLANES[:3]
-    spec = PlanSpec(caps=MULTI_CAPS)
-    scenes = []
-    for seed in range(n):
-        b = make_batch(SceneConfig(**MULTI_SCENE), 1, MULTI_P_CAP, I_CAP,
-                       seed=seed)
-        plan = augment_plan_with_point_layout(
-            build_plan_host(b["coords"], spec))
-        scenes.append((apply_point_layout(b, plan), plan))
     # f32 at HIGHEST precision and SGD (update linear in the gradient, so
     # the mean of single-card updates is the update of the mean gradient):
     # the comparisons measure the parallel paths, not TF32 or Adam
     cfg = TrainConfig(optimizer="sgd")
-    model = LearningBWDenseUNet(n_planes=planes, num_classes=20)
+    model = LearningBWDenseUNet(n_planes=tuple(planes), num_classes=20)
     flat = lambda t: np.concatenate(
         [np.ravel(np.asarray(x, np.float64)) for x in jax.tree.leaves(t)])
+    dev = lambda t: jax.tree.map(jnp.asarray, t)
 
     with jax.default_matmul_precision("highest"):
-        dev = lambda t: jax.tree.map(jnp.asarray, t)
-        b0 = dev(scenes[0][0])
+        b0, plan0 = dev(scenes[0][0]), dev(scenes[0][1])
         state0 = create_train_state(model, jax.random.PRNGKey(0), b0, spec,
                                     cfg)
         p0 = flat(state0.params)
         ref_step = jax.jit(make_train_step(model, spec, cfg,
-                                           num_instances=I_CAP))
-        ref = [ref_step(state0, dev(b), dev(p)) for b, p in scenes]
-        ref_upd = np.mean([flat(s.params) - p0 for s, _ in ref], axis=0)
-        ref_loss = float(np.mean([float(t["total"]) for _, t in ref]))
-
-        # ---- data parallel: one scene per card ----
+                                           num_instances=num_instances))
         mesh = make_mesh(n, devices=devs)
+        dp_step = make_dp_train_step(model, spec, mesh, cfg, num_scenes=1,
+                                     num_instances=num_instances)
         stacked = {k: np.stack([b[k] for b, _ in scenes])
                    for k in scenes[0][0]}
-        dp_step = make_dp_train_step(model, spec, mesh, cfg, num_scenes=1,
-                                     num_instances=I_CAP)
-        dstate, dparts = dp_step(
-            replicate_state(state0, mesh), shard_batch(stacked, mesh),
-            shard_plans(stack_plans([p for _, p in scenes]), mesh))
-        jax.block_until_ready(dstate)
-        mem = _per_card(devs, "peak_bytes_in_use")
-        e_dp = rel_err(flat(dstate.params) - p0, ref_upd)
-        e_loss = abs(float(dparts["total"]) - ref_loss) / abs(ref_loss)
-        log(f"(dp) per-card peak_bytes_in_use {mem}")
-        log(f"(dp) {n} cards: update rel err {e_dp:.2e} vs the mean of "
-            f"{n} single-card updates; loss {float(dparts['total']):.6f} "
-            f"vs {ref_loss:.6f} (rel {e_loss:.2e})")
-        if e_dp > DP_RTOL or e_loss > DP_RTOL or not all(mem):
-            raise SystemExit("error: data-parallel step does not match")
-        del dstate
-        gc.collect()
-
-        # ---- spatial sharding: scene 0 over n cards ----
+        dp_args = (replicate_state(state0, mesh), shard_batch(stacked, mesh),
+                   shard_plans(stack_plans([p for _, p in scenes]), mesh))
         smesh = Mesh(np.asarray(devs), (SPACE_AXIS,))
-        sa = prepare_shard_args(scenes[0][1], n, halo=4096, pool=4096)
+        sa = prepare_shard_args(scenes[0][1], n, halo=halo, pool=pool)
+        sa.pop("num_shards")
         sp_step = jax.jit(make_spatial_train_step(
-            smesh, planes, cfg, num_instances=I_CAP))
-        sstate, sparts = sp_step(state0, b0, sa)
-        jax.block_until_ready(sstate)
-        mem = _per_card(devs, "bytes_in_use")
-        rstate, rparts = ref[0]
-        e_l = abs(float(sparts["total"]) - float(rparts["total"])) \
-            / abs(float(rparts["total"]))
-        e_u = rel_err(flat(sstate.params) - p0, flat(rstate.params) - p0)
-        log(f"(spatial) per-card bytes_in_use {mem}")
-        log(f"(spatial) {n} shards: loss {float(sparts['total']):.6f} vs "
-            f"unsharded {float(rparts['total']):.6f} (rel {e_l:.2e}), "
-            f"update rel err {e_u:.2e}")
-        if e_l > SPATIAL_RTOL or e_u > SPATIAL_RTOL or not all(mem):
-            raise SystemExit("error: spatially sharded step does not match")
+            smesh, planes, cfg, num_instances=num_instances))
+        t0 = time.perf_counter()
+        ref_c, dp_c, sp_c = compile_concurrently([
+            (ref_step, (state0, b0, plan0)), (dp_step, dp_args),
+            (sp_step, (state0, b0, sa))])
+        log(f"(multi) single-card, DP and spatial steps compiled in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    bad = []
+
+    # ---- spatial sharding: scene 0 over n cards (first, so that the
+    # peaks of cards 1.. show its work) ----
+    before = _peaks(devs)
+    sstate, sparts = sp_c(state0, b0, sa)
+    jax.block_until_ready(sstate)
+    mem = _peaks(devs)
+    ref = [ref_c(state0, dev(b), dev(p)) for b, p in scenes]
+    ref_upd = np.mean([flat(s.params) - p0 for s, _ in ref], axis=0)
+    ref_loss = float(np.mean([float(t["total"]) for _, t in ref]))
+    rstate, rparts = ref[0]
+    e_l = abs(float(sparts["total"]) - float(rparts["total"])) \
+        / abs(float(rparts["total"]))
+    e_u = rel_err(flat(sstate.params) - p0, flat(rstate.params) - p0)
+    log(f"(spatial) per-card peak_bytes_in_use {before} -> {mem}")
+    log(f"(spatial) {n} shards: loss {float(sparts['total']):.6f} vs "
+        f"unsharded {float(rparts['total']):.6f} (rel {e_l:.2e}), "
+        f"update rel err {e_u:.2e}")
+    if e_l > SPATIAL_RTOL or e_u > SPATIAL_RTOL or not _grew(before, mem):
+        bad.append("spatial")
+    del sstate
+    gc.collect()
+
+    # ---- data parallel: one scene per card ----
+    before = _peaks(devs)
+    dstate, dparts = dp_c(*dp_args)
+    jax.block_until_ready(dstate)
+    mem = _peaks(devs)
+    e_dp = rel_err(flat(dstate.params) - p0, ref_upd)
+    e_loss = abs(float(dparts["total"]) - ref_loss) / abs(ref_loss)
+    log(f"(dp) per-card peak_bytes_in_use {before} -> {mem}")
+    log(f"(dp) {n} cards: update rel err {e_dp:.2e} vs the mean of "
+        f"{n} single-card updates; loss {float(dparts['total']):.6f} "
+        f"vs {ref_loss:.6f} (rel {e_loss:.2e})")
+    if e_dp > DP_RTOL or e_loss > DP_RTOL or not _grew(before, mem):
+        bad.append("data-parallel")
+    if bad:
+        raise SystemExit(f"error: multi-card steps do not match: {bad}")
 
 
 def main() -> None:
@@ -317,14 +333,16 @@ def main() -> None:
     require_gpu()
     log(f"compile cache: {enable_compile_cache()}")
     info = phase_device()
-    if args.cards == 4:
-        phase_multicard(4)
-    else:
-        from occuseg.core.topology import PlanSpec
+    from occuseg.core.topology import PlanSpec
 
+    spec = PlanSpec(caps=bench.SCENE_CAPS)
+    if args.cards == 4:
+        scenes = [bench.prepare(seed)[:2] for seed in range(4)]
+        phase_multicard(4, scenes, N_PLANES, spec)
+    else:
         batch, plan, nvox = bench.prepare(0, 1)
         log(f"scene: {nvox} active voxels, caps {bench.SCENE_CAPS}")
-        phase_flagship_step(batch, plan, PlanSpec(caps=bench.SCENE_CAPS))
+        phase_flagship_step(batch, plan, spec)
         gc.collect()
         phase_accuracy(batch, plan)
         del batch, plan

@@ -333,11 +333,11 @@ class InputLayer(nn.Module):
 
 
 def _voxelize(point_features, plan: Topology, mode: str):
-    sorted_ids = (plan.vox_counts is not None
-                  and dispatch.impl().sorted_segment_sum)
+    # the sorted point layout (vox_counts set) makes p2v non-decreasing
     return pool_ops.voxelize_features(
         point_features, plan.p2v, plan.levels[0].cap, mode=mode,
-        vox_counts=plan.vox_counts, indices_are_sorted=sorted_ids)
+        vox_counts=plan.vox_counts,
+        indices_are_sorted=plan.vox_counts is not None)
 
 
 class OutputLayer(nn.Module):

@@ -1,13 +1,12 @@
-"""Which implementation of the sparse conv and the point IO each platform
-gets — decided here and nowhere else.
+"""Which implementation of the sparse conv each platform gets — decided
+here and nowhere else.
 
 The platform is that of the first JAX device:
 
 * ``gpu``: the fused Pallas (Triton route) gather-GEMM conv
-  (`ops/triton_conv.py`), and the voxelize segment sum told that the
-  sorted point layout's ids are sorted — both measured faster than the
-  plain forms on an H100 (PERF.md, PR 1);
-* ``cpu``: the plain XLA forms, which are also the references the tests
+  (`ops/triton_conv.py`), measured faster than the plain form on an H100
+  (PERF.md, PR 1);
+* ``cpu``: the plain XLA conv, which is also the reference the tests
   compare against.
 
 Any other platform raises: nothing falls back silently, and nothing runs
@@ -30,15 +29,11 @@ class Impl:
     platform: str
     # gather_conv(feats, nbr, weight, bias=None, nbr_t=None) -> [M, Cout]
     conv: Callable
-    # pass indices_are_sorted to the voxelize segment sum when the plan
-    # carries the sorted point layout
-    sorted_segment_sum: bool
 
 
 _IMPLS = {
-    "cpu": Impl("cpu", conv_ops.gather_conv, sorted_segment_sum=False),
-    "gpu": Impl("gpu", triton_conv.triton_gather_conv,
-                sorted_segment_sum=True),
+    "cpu": Impl("cpu", conv_ops.gather_conv),
+    "gpu": Impl("gpu", triton_conv.triton_gather_conv),
 }
 
 

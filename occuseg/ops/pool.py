@@ -53,7 +53,7 @@ def voxelize_features(point_feats: jnp.ndarray, p2v: jnp.ndarray,
     point layout (`core/point_layout.py`) — the mean then needs no count
     pass. `indices_are_sorted` tells the segment sum that p2v is
     non-decreasing with its -1 padding last, which the sorted layout
-    guarantees; `ops/dispatch.py` decides per platform whether to say so.
+    guarantees.
     """
     seg = jnp.where(p2v >= 0, p2v, num_voxels_cap).astype(jnp.int32)
     f32 = point_feats.astype(jnp.float32)

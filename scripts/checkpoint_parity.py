@@ -35,10 +35,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from occuseg.utils.runtime import enable_compile_cache
+
 TOL = 1e-3
 
 
 def main() -> None:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
     from occuseg.train.config import args_to_config, get_parser
     parser = get_parser()

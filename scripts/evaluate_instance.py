@@ -41,6 +41,7 @@ from occuseg.cluster import (
 from occuseg.cluster.evaluator import gt_instances
 from occuseg.cluster.meanshift import labels_to_points
 from occuseg.train.config import args_to_config, get_parser
+from occuseg.utils.runtime import enable_compile_cache
 
 
 def cluster_and_score(scene: dict, args) -> tuple:
@@ -201,6 +202,7 @@ def score_scenes(scenes, args) -> dict:
 
 
 def main() -> None:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
     parser = get_parser()
     parser.add_argument("--use_merge", action="store_true", default=False)

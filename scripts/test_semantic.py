@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from occuseg.train.config import args_to_config, get_parser
 from occuseg.train.loop import build_model, build_spec, get_dataset
 from occuseg.train.state import create_train_state, make_eval_step
+from occuseg.utils.runtime import enable_compile_cache
 
 # 20-class index -> NYU40 label id (reference test.py SELECTED_LABEL_IDS)
 SELECTED_LABEL_IDS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24,
@@ -26,6 +27,7 @@ SELECTED_LABEL_IDS = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24,
 
 
 def main() -> None:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
     parser = get_parser()
     parser.add_argument("--out_dir", default="submission_semantic")

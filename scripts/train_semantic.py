@@ -9,9 +9,11 @@ sys.path.insert(0, ".")
 
 from occuseg.train.config import args_to_config, get_parser
 from occuseg.train.loop import evaluate_semantic, train
+from occuseg.utils.runtime import enable_compile_cache
 
 
 def main() -> None:
+    enable_compile_cache()
     logging.basicConfig(level=logging.INFO)
     args = get_parser().parse_args()
     config = args_to_config(args)

@@ -2,6 +2,7 @@
 points' refusal to run elsewhere."""
 
 import os
+import runpy
 import shutil
 import subprocess
 import sys
@@ -16,14 +17,13 @@ from occuseg.utils import runtime
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("platform,conv,sorted_ids", [
-    ("cpu", conv_ops.gather_conv, False),
-    ("gpu", triton_conv.triton_gather_conv, True)])
-def test_dispatch_known_platforms(platform, conv, sorted_ids):
+@pytest.mark.parametrize("platform,conv", [
+    ("cpu", conv_ops.gather_conv),
+    ("gpu", triton_conv.triton_gather_conv)])
+def test_dispatch_known_platforms(platform, conv):
     impl = dispatch.impl(platform)
     assert impl.platform == platform
     assert impl.conv is conv
-    assert impl.sorted_segment_sum is sorted_ids
 
 
 @pytest.mark.parametrize("platform", ["rocm", "metal", "unknown"])
@@ -50,6 +50,26 @@ def test_compile_cache_dir(monkeypatch, tmp_path, env):
         assert jax.config.jax_compilation_cache_dir == want
     finally:
         jax.config.update("jax_compilation_cache_dir", before)
+
+
+class _CacheCalled(Exception):
+    pass
+
+
+@pytest.mark.parametrize("script", [
+    "train_instance.py", "train_semantic.py", "test_semantic.py",
+    "evaluate_instance.py", "checkpoint_parity.py"])
+def test_scripts_enable_compile_cache_first(monkeypatch, script):
+    """Each JAX entry point under scripts/ turns the compile cache on
+    before it does anything else (without that, `--help` exits first)."""
+    def called():
+        raise _CacheCalled
+
+    monkeypatch.setattr(runtime, "enable_compile_cache", called)
+    monkeypatch.setattr(sys, "argv", [script, "--help"])
+    with pytest.raises(_CacheCalled):
+        runpy.run_path(os.path.join(REPO, "scripts", script),
+                       run_name="__main__")
 
 
 def test_require_gpu_refuses_cpu():

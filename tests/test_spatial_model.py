@@ -1,5 +1,8 @@
 """Spatially-sharded flagship-model inference vs the unsharded apply."""
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 
@@ -7,6 +10,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+from occuseg.core.point_layout import (
+    apply_point_layout, augment_plan_with_point_layout,
+)
 from occuseg.core.topology import PlanSpec
 from occuseg.data.synthetic import SceneConfig, make_batch
 from occuseg.models import LearningBWDenseUNet
@@ -212,3 +218,27 @@ def test_sharded_infer_bf16_matches_unsharded_bf16():
     # bf16 activations: compare within a few bf16 ulps of the value scale
     np.testing.assert_allclose(b, a, rtol=5e-2,
                                atol=0.05 * np.abs(a).max())
+
+
+def test_chip_smoke_multicard_rehearsal(capsys):
+    """`chip_smoke.py --cards 4`'s phase on 4 virtual CPU devices: the
+    spatially sharded and data-parallel steps of a 6-level UNet (small
+    widths, tiny rooms) against their single-device comparisons."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    mod_spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(chip_smoke)
+
+    spec = PlanSpec(caps=(2048, 1024, 256, 64, 16, 8))
+    scenes = []
+    for seed in range(4):
+        b = make_batch(SceneConfig(num_points=3000, extent=40,
+                                   num_objects=6), 1, 4096, 16, seed=seed)
+        plan = augment_plan_with_point_layout(
+            build_plan_host(b["coords"], spec))
+        scenes.append((apply_point_layout(b, plan), plan))
+    chip_smoke.phase_multicard(4, scenes, (8, 16, 24, 32, 40, 48), spec,
+                               num_instances=16, halo=256, pool=256)
+    out = capsys.readouterr().out
+    assert "(spatial) 4 shards" in out and "(dp) 4 cards" in out
